@@ -1,4 +1,4 @@
-"""mpir_fft_tpu -- TPU-native truncated-FFT big-integer multiplication.
+"""mpir_fft_tpu -- truncated-FFT big-integer multiplication in JAX.
 
 Public API (lazy imports so `import mpir_fft_tpu` stays instant; the heavy
 jax stack loads on first use):

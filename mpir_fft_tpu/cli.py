@@ -84,12 +84,11 @@ def cmd_bench(args) -> int:
     import bench as bench_mod  # repo-root bench.py
 
     if args.batch > 1:
-        sys.argv = ["bench.py", "batch", str(args.bits), str(args.batch),
-                    str(args.reps), args.driver]
+        argv = ["batch", str(args.bits), str(args.batch), str(args.reps),
+                args.driver]
     else:
-        sys.argv = ["bench.py", str(args.bits), str(args.reps), args.driver]
-    bench_mod.main()
-    return 0
+        argv = [str(args.bits), str(args.reps), args.driver]
+    return bench_mod.main(argv)
 
 
 def cmd_selftest(args) -> int:
@@ -176,7 +175,7 @@ def main(argv=None) -> int:
                     help="ring width N (p = 2^N + 1)")
     mm.set_defaults(fn=cmd_mulmod)
 
-    b = sub.add_parser("bench", help="time the multiply on the attached device")
+    b = sub.add_parser("bench", help="time the multiply on the GPU")
     b.add_argument("--bits", type=int, default=10_000_000)
     b.add_argument("--reps", type=int, default=3)
     b.add_argument("--driver", default="flagship")

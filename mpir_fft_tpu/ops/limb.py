@@ -1,6 +1,6 @@
 """Limb/digit substrate: the L0 replacement (ref: MPIR mpn kernels + mul_fft.c:272-512).
 
-TPU-native representation of elements of the ring Z/pZ, p = 2^W + 1 (a generalized
+Device representation of elements of the ring Z/pZ, p = 2^W + 1 (a generalized
 Fermat ring, W = n*w bits):
 
     An element is a vector of L = W/16 signed base-2^16 digits stored in int32
@@ -11,7 +11,7 @@ mul_fft.c:771-784 / README:54):
 
 * The reference keeps `limbs+1` two's-complement limbs and lets carries pile up
   in a signed top limb, folded in by `mpn_normmod_2expp1` (mul_fft.c:272-294).
-  On TPU we instead keep *redundant signed digits*: every digit has ~15 bits of
+  Here we instead keep *redundant signed digits*: every digit has ~15 bits of
   headroom inside its int32 container, so carries accumulate *everywhere*, not
   just at the top.  Overflow out of the top digit wraps around to digit 0 with a
   sign flip, because 2^W = -1 (mod p) -- so no extra carry limb is needed at all.
@@ -23,7 +23,7 @@ mul_fft.c:771-784 / README:54):
   mul_fft.c:494-512) is a negacyclic digit rotation plus a sub-digit bit shift.
   Row-dependent rotation amounts use a barrel shifter (log2(L) statically-shifted
   negacyclic rolls selected by masks) so no gathers are needed; sub-digit shifts
-  use native per-element variable shifts on the VPU.
+  use native per-element variable shifts.
 
 Canonical form (the output contract of `normmod`): all digits in [0, 2^16),
 except the single residue -1 == 2^W (mod p) which is stored as
@@ -136,9 +136,8 @@ def _exact_carries(d: jax.Array) -> tuple[jax.Array, jax.Array]:
     The carry transition f(cin) = floor((d + cin)/2^16) is carried as THREE
     int32 planes (f evaluated at cin = -1/0/+1) composed with a manual
     Hillis-Steele doubling loop -- log2(L) whole-array steps.  Planes, not
-    a stacked [..., L, 3] triple, because (a) Mosaic cannot lower the
-    triple's minor-axis element indexing (dynamic_slice) inside Pallas
-    kernels and (b) the planes cost 3x less bandwidth.  Not
+    a stacked [..., L, 3] triple, because the planes avoid minor-axis
+    element indexing and cost 3x less bandwidth.  Not
     lax.associative_scan, whose recursive construction emits O(L)
     slice/concat HLO ops and blew up compile memory at L = 1024."""
     m1 = (d - 1) >> DIGIT_BITS
@@ -196,41 +195,7 @@ def normmod(x: jax.Array) -> jax.Array:
 
     Equivalent of mpn_normmod_2expp1 (mul_fft.c:272-294): folds all redundancy
     so digits land in [0, 2^16) (special-casing the residue -1).  Works for any
-    digit magnitudes up to ~2^30 (three bounding passes, then an exact scan).
-
-    Batched inputs auto-fuse into a Pallas row kernel when enabled: the
-    log2(L)-round scan plus the ripple masks otherwise cost dozens of HBM
-    passes (measured 0.42 s of the 10^9-bit multiply's 1.67 s); in VMEM the
-    whole canonicalization is one HBM round trip."""
-    if x.ndim >= 2 and x.shape[-1] >= 128:
-        from .fused import fused_rows, use_pallas
-        from .transforms import _NO_FUSE
-
-        if use_pallas() and not _NO_FUSE.get():
-            return fused_rows(_normmod_core, x)
-    return _normmod_core(x)
-
-
-def normmod_div(x: jax.Array, d: int, W_bits: int) -> jax.Array:
-    """normmod(div_2expmod(x, d, W)) in ONE pass (ref: the scale + normalize
-    tail of every driver, mul_fft.c:3658-3662).  The staged flagship's
-    normalize stage otherwise pays separate HBM round trips for the static
-    shift and the normmod kernel; fused on VMEM row blocks both cost one."""
-    s = (2 * W_bits - int(d)) % (2 * W_bits)
-
-    def core(r):
-        return _normmod_core(shift_mod(r, s, W_bits))
-
-    if x.ndim >= 2 and x.shape[-1] >= 128:
-        from .fused import fused_rows, use_pallas
-        from .transforms import _NO_FUSE
-
-        if use_pallas() and not _NO_FUSE.get():
-            return fused_rows(core, x)
-    return core(x)
-
-
-def _normmod_core(x: jax.Array) -> jax.Array:
+    digit magnitudes up to ~2^30 (three bounding passes, then an exact scan)."""
     # Bound digits into scan range: after two passes bound is ~2^16 + 2
     x = carry_pass(carry_pass(x))
     cin, cout = _exact_carries(x)
@@ -240,10 +205,16 @@ def _normmod_core(x: jax.Array) -> jax.Array:
     return _sub_small_at_0(r, cout)
 
 
+def normmod_div(x: jax.Array, d: int, W_bits: int) -> jax.Array:
+    """normmod(div_2expmod(x, d, W)) (ref: the scale + normalize tail of
+    every driver, mul_fft.c:3658-3662)."""
+    s = (2 * W_bits - int(d)) % (2 * W_bits)
+    return normmod(shift_mod(x, s, W_bits))
+
+
 def _prefix_and(b: jax.Array) -> jax.Array:
     """Inclusive prefix-AND of {0,1} int32 along the last axis, as a
-    Hillis-Steele doubling loop (cumprod is not Pallas/Mosaic-lowerable;
-    this is, and XLA fuses it identically outside kernels)."""
+    Hillis-Steele doubling loop."""
     L = b.shape[-1]
     k = 1
     while k < L:

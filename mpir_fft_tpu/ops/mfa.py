@@ -8,11 +8,11 @@ transform -- and IFFT_radix2_mfa_truncate_sqrt2 mul_fft.c:2593-2743).
 A length C = n1*n2 transform becomes n1 column FFTs of length n2 (root
 z^n1) with the cross twiddles z^(k2*j1) fused into the column transforms'
 final stage, followed by n2 row FFTs of length n1 (root z^n2).  The
-reference blocks this way for cache locality (README:74-91); on TPU the same
-factorization is (a) the unit of VMEM-residency for column kernels and
-(b) the sharding axis over the device mesh: column FFTs batch over j1 --
-shard j1 and the column pass is device-local; one logical transpose (XLA
-all-to-all under a sharding constraint) moves to the row pass.
+reference blocks this way for cache locality (README:74-91); here the same
+factorization is the sharding axis over the device mesh: column FFTs batch
+over j1 -- shard j1 and the column pass is device-local; one logical
+transpose (XLA all-to-all under a sharding constraint) moves to the row
+pass.
 
 Layout convention: coefficient j of the 1-D transform lives at matrix cell
 (j2, j1), j = j2*n1 + j1 (the reference's stride-n1 columns).  The
@@ -34,8 +34,6 @@ import jax.numpy as jnp
 
 import jax
 
-from .fused import (MAX_FUSED_L, fused_batched, fused_batched_idx,
-                    use_pallas, whole_row_ok)
 from .limb import carry_pass, div_2expmod, mul_2expmod
 from .sqrt2 import _sqrt2_top_fwd, _sqrt2_top_inv, twiddle_half
 from .transforms import fft_radix2, ifft_radix2, revbin_iota
@@ -43,8 +41,8 @@ from .truncate import _cat, fft_trunc, fft_trunc1, ifft_trunc, ifft_trunc1
 
 
 def _cat3(*parts):
-    """Concat along axis -3, dropping zero-length parts (Mosaic rejects
-    empty vectors at trunc2 == n2 edges)."""
+    """Concat along axis -3, dropping zero-length parts (trunc2 == n2
+    edges)."""
     parts = [p for p in parts if p.shape[-3] > 0]
     if len(parts) == 1:
         return parts[0]
@@ -54,63 +52,26 @@ def _cat3(*parts):
 def _cross_exps(n1: int, n2: int, w: int, W: int, j1_start=0) -> jax.Array:
     """exps[j1, j2p] = w * revbin(j2p, log n2) * j1: the z^(k2*j1) cross
     twiddle, indexed by column j1 (offset by j1_start, possibly traced, for
-    blocked kernels) and column-output position j2p.  Built traced (iota +
-    bit ops) so fused Pallas kernels see ops, not captured constants."""
+    device or chunk blocks) and column-output position j2p."""
     rb = revbin_iota(n2)                      # k2 at output position j2p
     j1 = j1_start + jax.lax.broadcasted_iota(jnp.int32, (n1, 1), 0)
     return (jnp.int32(w) * rb[None, :] * j1) % (2 * W)
 
 
-def _block_cross_exps(rows: int, st, n1_mask: int, n2: int, w: int, W: int,
-                      off=0) -> jax.Array:
-    """Cross exps for a fused kernel block of `rows` consecutive flattened
-    batch rows starting at (traced) st: the column index of flat row r is
-    r & n1_mask -- masked AFTER adding the in-block offset, because a VMEM
-    block may span more than one copy of the column axis (blocks bigger
-    than n1 wrap; masking the start alone mis-twiddled every row past the
-    wrap).  `off` adds a global column offset (shard_map device blocks)."""
-    j1 = (st + jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0)) & n1_mask
-    rb = revbin_iota(n2)
-    return (jnp.int32(w) * rb[None, :] * (off + j1)) % (2 * W)
-
-
 def _shard_ctx(con):
     """A constrainer that carries (mesh, axis) -- parallel.mfa_sharded's
     ShardCtx -- turns the column/row passes into shard_map'd device-local
-    programs, so the Pallas VMEM kernels run UNCHANGED on each device's
-    block (round 1 disabled fusion whenever sharded, losing the kernels'
-    ~2.4x; the MFA exists for locality, README:74-91)."""
+    programs."""
     return con if (con is not None and hasattr(con, "mesh")) else None
 
 
-def _local_cols(blk, fcol, n1_loc: int, n2: int, w: int, W: int, off,
-                full: bool = True):
-    """Device-local column pass over blk [..., n1_loc, n2, L]; off = global
-    index of the block's first column (traced)."""
-    if (use_pallas() and blk.ndim in (3, 4) and blk.shape[-1] <= MAX_FUSED_L
-            and (not full or whole_row_ok(blk.shape[-2], blk.shape[-1]))):
-        flat = blk.reshape((-1,) + blk.shape[-2:])
-        out = fused_batched_idx(
-            lambda b, st, o: fcol(
-                b, _block_cross_exps(b.shape[0], st, n1_loc - 1, n2, w, W, o)
-            ),
-            flat,
-            scalar=off,
-        )
-        return out.reshape(blk.shape)
-    return fcol(blk, _cross_exps(n1_loc, n2, w, W, off))
-
-
-def _run_cols(xc, con, fcol, n2: int, w: int, W: int, full: bool = True):
-    """Column pass: fcol(block, pe) over xc [..., n1, n2, L], whole pass
-    fused into VMEM-resident Pallas kernels when possible (one HBM round
-    trip for all log2(n2) stages instead of one per stage-op).  Leading dims
-    (e.g. the two stacked operands) flatten into the kernel batch; the
-    column index inside the flattened batch is start & (n1-1).
+def _run_cols(xc, con, fcol, n2: int, w: int, W: int):
+    """Column pass: fcol(block, pe) over xc [..., n1, n2, L], pe the cross
+    twiddle exponents of the block's columns.
 
     With a ShardCtx constrainer the pass runs under shard_map over the n1
     axis: column FFTs are device-local by construction (SURVEY.md section 2),
-    and each device runs the same fused kernels on its column block."""
+    each device transforming its own column block."""
     n1 = xc.shape[-3]
     ctx = _shard_ctx(con)
     if ctx is not None and n1 % ctx.ndev == 0 and xc.ndim in (3, 4):
@@ -122,29 +83,16 @@ def _run_cols(xc, con, fcol, n2: int, w: int, W: int, full: bool = True):
 
         def local(blk):
             off = _jax.lax.axis_index(ctx.axis) * n1_loc
-            return _local_cols(blk, fcol, n1_loc, n2, w, W, off, full=full)
+            return fcol(blk, _cross_exps(n1_loc, n2, w, W, off))
 
         return _jax.shard_map(
             local, mesh=ctx.mesh, in_specs=(spec,), out_specs=spec,
-            check_vma=False,  # pallas_call outputs carry no vma info
         )(xc)
-    if (con is None and use_pallas() and xc.ndim in (3, 4)
-            and xc.shape[-1] <= MAX_FUSED_L
-            and (not full or whole_row_ok(xc.shape[-2], xc.shape[-1]))):
-        flat = xc.reshape((-1,) + xc.shape[-2:])
-        out = fused_batched_idx(
-            lambda blk, st: fcol(
-                blk, _block_cross_exps(blk.shape[0], st, n1 - 1, n2, w, W)
-            ),
-            flat,
-        )
-        return out.reshape(xc.shape)
     return fcol(xc, _cross_exps(n1, n2, w, W))
 
 
 def _run_rows(xr, con, frow):
-    """Row pass: frow over xr [..., B, n1, L], fused when possible (leading
-    dims flatten into the kernel batch; rows carry no index-dependent
+    """Row pass: frow over xr [..., B, n1, L] (rows carry no index-dependent
     tables).
 
     With a ShardCtx constrainer the pass runs under shard_map over the row
@@ -162,23 +110,10 @@ def _run_rows(xr, con, frow):
             xr = jnp.pad(xr, padw)
         spec = P(*([None] * (xr.ndim - 3)), ctx.axis, None, None)
 
-        def local(blk):
-            if (use_pallas() and blk.shape[-1] <= MAX_FUSED_L
-                    and whole_row_ok(blk.shape[-2], blk.shape[-1])):
-                flat = blk.reshape((-1,) + blk.shape[-2:])
-                return fused_batched(frow, flat).reshape(blk.shape)
-            return frow(blk)
-
         out = _jax.shard_map(
-            local, mesh=ctx.mesh, in_specs=(spec,), out_specs=spec,
-            check_vma=False,  # pallas_call outputs carry no vma info
+            frow, mesh=ctx.mesh, in_specs=(spec,), out_specs=spec,
         )(xr)
         return out[..., :B, :, :] if pad else out
-    if (con is None and use_pallas() and xr.ndim in (3, 4)
-            and xr.shape[-1] <= MAX_FUSED_L
-            and whole_row_ok(xr.shape[-2], xr.shape[-1])):
-        flat = xr.reshape((-1,) + xr.shape[-2:])
-        return fused_batched(frow, flat).reshape(xr.shape)
     return frow(xr)
 
 
@@ -239,7 +174,7 @@ def mfa_fft_trunc(x, w: int, W: int, n1: int, n2: int, trunc2: int,
     f = fft_trunc1 if no_zero_tail else fft_trunc
     xc = jnp.swapaxes(cc(x, "cols"), -3, -2)
     xc = _run_cols(xc, con, lambda b, pe: f(b, w * n1, W, trunc2, pe),
-                   n2, w, W, full=trunc2 == n2)
+                   n2, w, W)
     xr = cc(jnp.swapaxes(xc, -3, -2), "rows")
     head = _run_rows(xr[..., :trunc2, :, :], con,
                      lambda b: fft_radix2(b, w * n2, W))
@@ -277,7 +212,7 @@ def mfa_ifft_trunc(v, w: int, W: int, n1: int, n2: int, trunc2: int,
     f = ifft_trunc1 if no_zero_tail else ifft_trunc
     xc = jnp.swapaxes(cc(xr, "cols"), -3, -2)
     xc = _run_cols(xc, con, lambda b, pe: f(b, w * n1, W, trunc2, pe),
-                   n2, w, W, full=trunc2 == n2)
+                   n2, w, W)
     return jnp.swapaxes(xc, -3, -2)
 
 
@@ -306,12 +241,9 @@ def mfa_fft_trunc_sqrt2(x, w: int, W: int, n1: int, trunc: int, con=None):
     n2 = h // n1
     assert trunc % n1 == 0 and 1 <= trunc <= C4
     if con is None and trunc == C4:
-        # full-length single-chip: the FLAT 1-D transform beats the 2-D MFA
-        # (no transposes, no cross-twiddle pass -- the VMEM ladder kernels
-        # already provide the locality the MFA blocks for; measured 32 ms vs
-        # 48 ms per half forward at the 10^9-bit shape).  The MFA stays for
-        # sharded runs (its column axis is the mesh axis) and real
-        # truncation.
+        # full-length single-device: the FLAT 1-D transform needs no
+        # transposes and no cross-twiddle pass.  The MFA stays for sharded
+        # runs (its column axis is the mesh axis) and real truncation.
         from .sqrt2 import fft_sqrt2
 
         return fft_sqrt2(x, w, W)
@@ -339,9 +271,9 @@ def mfa_ifft_trunc_sqrt2(v, w: int, W: int, n1: int, trunc: int, con=None,
     rows_done=True: positions < trunc already went through ifft_mfa_rows
     (root w * n2) -- the pointwise-fused combined variant.
     norm_div > 0: fold the drivers' divide-by-2^norm_div + normmod tail
-    into the inverse's last pass over each position (flat dispatch: the
-    top-merge kernel; MFA dispatch: the sqrt2 top merge / an appended
-    in-program normalize -- either way no separate normalize program).
+    into the inverse's last pass over each position (the sqrt2 top merge /
+    an appended in-program normalize -- either way no separate normalize
+    program).
     Positions >= trunc are garbage in all paths and exempt."""
     from .limb import normmod_div
 
@@ -350,10 +282,10 @@ def mfa_ifft_trunc_sqrt2(v, w: int, W: int, n1: int, trunc: int, con=None,
     n2 = h // n1
     assert trunc % n1 == 0 and 1 <= trunc <= C4
     if con is None and trunc == C4:
-        # full-length single-chip: flat 1-D inverse (see mfa_fft_trunc_sqrt2;
-        # measured 26 ms vs 55 ms per half at the 10^9-bit shape).
-        # rows_done here means the innermost ladder group already ran
-        # chunk-locally in the pointwise program (transforms.ifft_innermost).
+        # full-length single-device: flat 1-D inverse (see
+        # mfa_fft_trunc_sqrt2).  rows_done here means the innermost inverse
+        # stages already ran chunk-locally in the pointwise program
+        # (transforms.ifft_innermost).
         from .sqrt2 import ifft_sqrt2
         from .transforms import inner_group
 

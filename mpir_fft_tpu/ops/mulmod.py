@@ -19,7 +19,7 @@ bit of headroom (W' >= 2b + depth + 2, so |c_j| < 2^(2b+depth+1) < p'/2) and
 lifts residues directly:  c_j = v_j - p' * [v_j > T],  T = 2^(2b+depth+1) --
 a branch-free digit comparison instead of a sequential carry-juggling CRT
 loop (the mul_fft.c:3069-3081 add_ssaaaa chain), which vectorizes; the ~4
-extra digits it costs are noise on TPU.
+extra digits it costs are noise.
 
 All functions are batched over leading dims: the FFT pointwise stage calls
 mulmod() ONCE over the whole coefficient matrix."""
@@ -41,13 +41,13 @@ from .pointwise import base_serves, mulmod_base
 from .split import fft_combine_bits, fft_split_bits
 from .transforms import _as_col
 
-# crossover in ring bits below which the direct base multiply (MXU NTT-CRT,
-# ops/ntt.py; VPU schoolbook fallback) beats a recursion level
+# crossover in ring bits below which the direct base multiply (NTT-CRT,
+# ops/ntt.py; schoolbook fallback) is chosen over a recursion level
 # (ref: limbs < 250 -> mpn_mulmod_2expp1, mul_fft.c:3135-3139; the value is a
 # tunable like the reference's 250-limb threshold).  131072 = the NTT's
-# M = 8192 (tier-2 primes, 4-step) ceiling; the MXU matmul pipeline beats a
-# whole recursive pipeline of dispatches at every width the NTT covers,
-# and the higher crossover flattens recursion for ~10^10-bit operands.
+# M = 8192 (tier-2 primes, 4-step) ceiling: the GEMM pipeline is preferred
+# to a whole recursive pipeline at every width the NTT covers, and the
+# higher crossover flattens recursion for ~10^10-bit operands.
 MULMOD_BASE_MAX_BITS = 131072
 
 
@@ -100,8 +100,8 @@ def mulmod_plan(N: int, depth: int | None = None) -> MulmodPlan | None:
         Lp = plan.Lp
         fft_cost = 3 * m * Lp * (d + 1) * 3
         if Wp <= MULMOD_BASE_MAX_BITS and base_serves(Lp):
-            # mirror params.plan_cost: the MXU NTT-CRT is ~10x cheaper per
-            # MAC than the VPU schoolbook; either beats a recursion level
+            # mirror params.plan_cost: the NTT-CRT is priced ~10x cheaper
+            # per MAC than the schoolbook; either below a recursion level
             from .ntt import ntt_supported
 
             pw_cost = m * (2 * Lp) ** 2 // 8

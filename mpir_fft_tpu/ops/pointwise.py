@@ -8,9 +8,9 @@ shift-and-accumulate scan in int32 (exact: |acc| <= 2L * 255^2 < 2^31 for
 2L <= 32768).  Batched over arbitrary leading dims -- the FFT's pointwise
 stage is one call over all coefficients.
 
-A Pallas/MXU Toeplitz path for this base case is the planned fast path; this
-jnp formulation is the portable exact reference (and already vectorizes over
-the huge pointwise batch).
+The NTT-CRT path (ops/ntt.py) serves power-of-two rings; this jnp
+formulation serves the rest and is the exact reference it is checked
+against (it vectorizes over the huge pointwise batch).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def chunks_to_digits(c):
         cc = c >> CHUNK_BITS
         cr = c - (cc << CHUNK_BITS)
         c = cr + jnp.concatenate([-cc[..., -1:], cc[..., :-1]], axis=-1)
-    # reshape-based deinterleave (strided slices lower to gathers in Mosaic)
+    # reshape-based deinterleave
     r = c.reshape(c.shape[:-1] + (c.shape[-1] // 2, 2))
     return r[..., 0] + (r[..., 1] << CHUNK_BITS)
 
@@ -86,11 +86,10 @@ def base_serves(L: int) -> bool:
 def mulmod_base(a, b, canonical: bool = True):
     """(a * b) mod 2^(16L)+1 on digit vectors [..., L].
 
-    Preferred path: the MXU small-prime NTT-CRT convolution (ops/ntt.py) --
-    dense per-prime transform matmuls on the systolic array, ~an order of
-    magnitude faster than the VPU schoolbook at production widths.  The
-    schoolbook chunk convolution below remains the fallback for shapes the
-    NTT doesn't cover (non-power-of-two L) and for MPIR_FFT_NTT=0 A/B runs.
+    Preferred path: the small-prime NTT-CRT convolution (ops/ntt.py) --
+    dense per-prime transform matmuls as int8 GEMMs.  The schoolbook chunk
+    convolution (mulmod_schoolbook) remains the path for shapes the NTT
+    doesn't cover (non-power-of-two L) and for MPIR_FFT_NTT=0 runs.
 
     Inputs may be REDUNDANT signed digits (|digit| <= ~2^17, the transform
     invariant): chunk products then stay below 2^18 and the accumulation
@@ -105,18 +104,14 @@ def mulmod_base(a, b, canonical: bool = True):
 
     if ntt_supported(a.shape[-1]) and _use_ntt():
         return mulmod_ntt(a, b, canonical=canonical)
+    return mulmod_schoolbook(a, b, canonical=canonical)
+
+
+def mulmod_schoolbook(a, b, canonical: bool = True):
+    """(a * b) mod 2^(16L)+1 by the schoolbook negacyclic chunk convolution,
+    for 2L <= 4096 (same digit contract as mulmod_base)."""
     M = 2 * a.shape[-1]
     assert M <= 4096, "chunk accumulation would overflow int32; use FFT recursion"
-    from .fused import use_pallas
-
-    if use_pallas() and a.shape == b.shape and a.ndim >= 2:
-        from .pointwise_fused import mulmod_base_fused
-
-        L = a.shape[-1]
-        d = mulmod_base_fused(
-            a.reshape(-1, L), b.reshape(-1, L)
-        ).reshape(a.shape)
-        return normmod(d) if canonical else d
     ca = digits_to_chunks(a)
     cb = digits_to_chunks(b)
     cc = negacyclic_conv_chunks(ca, cb)

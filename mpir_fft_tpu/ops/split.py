@@ -40,8 +40,7 @@ def fft_split_bits(x, bits: int, num_coeffs: int, L: int):
     Unaligned strides use the residue-class path: coefficients j == r (mod P)
     share one constant bit offset and sit at an integer digit stride, so each
     class is a strided window reshape plus ONE constant-shift pass -- no
-    gather at all (TPU gathers cost ~100x; measured 153 ms -> ~5 ms on the
-    10^9-bit split).  This replaces the reference's running shift_bits +
+    gather at all.  This replaces the reference's running shift_bits +
     mpn_rshift loop (mul_fft.c:115-170)."""
     Lx = x.shape[-1]
     if bits % DIGIT_BITS == 0:
@@ -271,18 +270,7 @@ def _combine_bits_classes(c, bits: int, Lout: int, P: int, S: int):
 def canonicalize_plain(x):
     """Exact non-modular carry canonicalization of a nonnegative redundant
     digit vector (digits < ~2^20); the true value must fit in the vector
-    (each row's, for batched 2-D input).
-
-    Huge vectors (the final combine at 10^8+ bits; batched mul_many rows)
-    auto-fuse into the two-level Pallas carry scan
-    (fused.fused_canonicalize_plain): ~2.5 HBM round trips instead of ~30
-    whole-array passes."""
-    if x.ndim <= 2 and x.shape[-1] >= (1 << 16):
-        from .fused import fused_canonicalize_plain, use_pallas
-        from .transforms import _NO_FUSE
-
-        if use_pallas() and not _NO_FUSE.get():
-            return fused_canonicalize_plain(x)
+    (each row's, for batched 2-D input)."""
     c = x >> DIGIT_BITS
     r = x - (c << DIGIT_BITS)
     x = r + jnp.concatenate([jnp.zeros_like(c[..., :1]), c[..., :-1]], axis=-1)

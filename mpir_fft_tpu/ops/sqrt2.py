@@ -39,26 +39,8 @@ def twiddle_half(x, e2, W: int):
     vector e2 (mod 4W).  Even entries are plain shifts; odd entries take the
     sqrt2 path.  Uses position slicing when parity alternates with position
     (every transform/weighting table in this library), masked select
-    otherwise.
-
-    Affine exponent vectors (every table this library builds) auto-fuse
-    into one Pallas row-kernel pass when enabled -- the select path below
-    otherwise costs ~28 HBM passes of barrel-shift twiddles."""
-    e2_raw = np.asarray(e2, np.int64)
-    if (
-        x.ndim >= 2
-        and e2_raw.ndim == 1
-        and e2_raw.size == x.shape[-2] >= 1
-        and (e2_raw.size == 1 or np.all(np.diff(e2_raw) == e2_raw[1] - e2_raw[0]))
-    ):
-        from .fused import MAX_STAGE_L, fused_twiddle_half, use_pallas
-        from .transforms import _NO_FUSE
-
-        if use_pallas() and not _NO_FUSE.get() and x.shape[-1] <= MAX_STAGE_L:
-            step = int(e2_raw[1] - e2_raw[0]) if e2_raw.size > 1 else 0
-            e0 = int(e2_raw[0] % (4 * W))
-            return fused_twiddle_half(x, e0, step, W, x.shape[-2])
-    e2 = np.mod(e2_raw, 4 * W)
+    otherwise."""
+    e2 = np.mod(np.asarray(e2, np.int64), 4 * W)
     if x.shape[-2] != e2.shape[-1]:
         raise ValueError((x.shape, e2.shape))
     k = e2 >> 1
@@ -108,24 +90,12 @@ def _top_exps(h: int, w: int) -> np.ndarray:
     return np.arange(h, dtype=np.int64) * w
 
 
-def _top_fusable(x) -> bool:
-    from .fused import MAX_STAGE_L, use_pallas
-    from .transforms import _NO_FUSE
-
-    return (use_pallas() and not _NO_FUSE.get() and x.ndim >= 2
-            and x.shape[-1] <= MAX_STAGE_L and x.shape[-2] >= 1)
-
-
 def _sqrt2_top_fwd(a, b, k: int, w: int, W: int):
     """Forward sqrt2 top layer: s = cat(carry(a+b)[:k], a[k:]),
     t = (a - b) * q^j, with b zero past k (truncated-input contract) so both
-    legs are branchless over the full half.  One fused kernel pass when
-    enabled (ref top-stage loop, mul_fft.c:2232-2265)."""
+    legs are branchless over the full half (ref top-stage loop,
+    mul_fft.c:2232-2265)."""
     h = a.shape[-2]
-    if _top_fusable(a):
-        from .fused import fused_sqrt2_top_fwd
-
-        return fused_sqrt2_top_fwd(a, b, w, W)
     s = _cat(carry_pass(a[..., :k, :] + b[..., :k, :]), a[..., k:, :])
     d = _cat(a[..., :k, :] - b[..., :k, :], a[..., k:, :])
     return s, twiddle_half(d, _top_exps(h, w), W)
@@ -133,14 +103,10 @@ def _sqrt2_top_fwd(a, b, k: int, w: int, W: int):
 
 def _sqrt2_top_inv(sl, orr, k: int, w: int, W: int, norm_div: int = 0):
     """Inverse sqrt2 top-layer merge on the first k positions:
-    u = oR * q^-j, xa = carry(sL + u), xb = carry(sL - u).  One fused kernel
-    pass when enabled (ref cross butterflies, mul_fft.c:2700-2730).
-    norm_div > 0 additionally divides both outputs by 2^norm_div and
-    canonicalizes in the same pass (the drivers' scale+normalize tail)."""
-    if _top_fusable(sl):
-        from .fused import fused_sqrt2_top_inv
-
-        return fused_sqrt2_top_inv(sl, orr, k, w, W, norm_div=norm_div)
+    u = oR * q^-j, xa = carry(sL + u), xb = carry(sL - u) (ref cross
+    butterflies, mul_fft.c:2700-2730).  norm_div > 0 additionally divides
+    both outputs by 2^norm_div and canonicalizes in the same program (the
+    drivers' scale+normalize tail)."""
     u = twiddle_half(orr, -_top_exps(k, w), W)
     xa, xb = carry_pass(sl + u), carry_pass(sl - u)
     if norm_div:
@@ -179,9 +145,9 @@ def ifft_sqrt2(x, w: int, W: int, pre_exps: np.ndarray | None = None,
     even-w length-C transform's innermost group equals the odd-w halves',
     step for step).
 
-    norm_div > 0: divide outputs by 2^norm_div and canonicalize -- fused
-    into the top-merge kernel for odd w, appended in-program for even w
-    (the drivers' scale+normalize tail, mul_fft.c:3658-3662)."""
+    norm_div > 0: divide outputs by 2^norm_div and canonicalize -- in the
+    top merge for odd w, appended in-program for even w (the drivers'
+    scale+normalize tail, mul_fft.c:3658-3662)."""
     C = x.shape[-2]
     if w % 2 == 0:
         out = ifft_radix2(x, w // 2, W, pre_exps=pre_exps,

@@ -22,9 +22,6 @@ Conventions (identical to the reference):
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import numpy as np
 
 import jax
@@ -32,51 +29,6 @@ import jax.numpy as jnp
 
 from .butterfly import butterfly_fwd, butterfly_inv
 from .limb import shift_mod
-
-# trace-time guard: set while tracing inside a Pallas kernel body so the
-# auto-fusing transforms below don't nest pallas_call inside pallas_call
-_NO_FUSE = contextvars.ContextVar("mpir_fft_no_fuse", default=False)
-
-
-@contextlib.contextmanager
-def no_auto_fuse():
-    tok = _NO_FUSE.set(True)
-    try:
-        yield
-    finally:
-        _NO_FUSE.reset(tok)
-
-
-def _auto_fusable(x) -> bool:
-    """Fuse a whole plain transform into one VMEM kernel when: enabled, not
-    already inside a kernel, batched (>= 3-D), and the digit width is under
-    the Mosaic compile-memory cap.  This catches the recursive mulmod's
-    inner negacyclic transforms, which otherwise run as XLA pass-storms
-    (the 10^9-bit pointwise stage was 80% of total time)."""
-    if _NO_FUSE.get() or x.ndim < 3:
-        return False
-    from .fused import MAX_FUSED_L, use_pallas, whole_row_ok
-
-    return (x.shape[-1] <= MAX_FUSED_L
-            and whole_row_ok(x.shape[-2], x.shape[-1], x.dtype.itemsize)
-            and use_pallas())
-
-
-def _stage_fusable(x) -> bool:
-    """Per-stage kernel fusion for (C, L) rows too big for whole-transform
-    kernels (one ladder group's temps fit the Mosaic stack where log2(C)
-    stages' don't).  The unfused fallback pays ~a dozen HBM passes per stage
-    for the barrel-shifted twiddles."""
-    if _NO_FUSE.get():
-        return False
-    from .fused import MAX_FUSED_L, MAX_STAGE_L, use_pallas, whole_row_ok
-
-    if x.shape[-1] > MAX_STAGE_L or not use_pallas():
-        return False
-    return x.shape[-1] > MAX_FUSED_L or not whole_row_ok(
-        x.shape[-2], x.shape[-1], x.dtype.itemsize
-    )
-
 
 def _as_col(e):
     """Shape an exponent vector for broadcast over the digit axis."""
@@ -86,15 +38,14 @@ def _as_col(e):
 
 
 def _iota_exps(h: int, step: int) -> jax.Array:
-    """Traced stage-exponent column (i * step for i < h) built from iota so
-    Pallas kernels see an op, not a captured constant (int32 is ample:
-    values < W < 2^31)."""
+    """Traced stage-exponent column (i * step for i < h) built from iota
+    (int32 is ample: values < W < 2^31)."""
     return jax.lax.broadcasted_iota(jnp.int32, (h, 1), 0) * jnp.int32(step)
 
 
 def revbin_iota(C: int) -> jax.Array:
     """Traced revbin(j, log2 C) for all j (ref mpir_revbin, mul_fft.c:52-79),
-    as bit ops on iota -- Pallas-compatible."""
+    as bit ops on iota."""
     D = C.bit_length() - 1
     j = jax.lax.broadcasted_iota(jnp.int32, (C, 1), 0)[..., 0]
     r = jnp.zeros_like(j)
@@ -112,27 +63,16 @@ def fft_radix2(x, w: int, W: int, post_exps: np.ndarray | None = None,
     2^post_exps[j] -- fused into the final stage (ref FFT_radix2_twiddle).
 
     pre_half = (e0, step2): input position j is first multiplied by
-    2^((e0 + j*step2)/2) (half-bit exponents) -- on the ladder-kernel path
-    this rides the first group's HBM round trip (the sqrt2 top-layer t-leg,
-    ref mul_fft.c:591-634); elsewhere it falls back to a separate
-    twiddle_half pass, same values."""
+    2^((e0 + j*step2)/2) (half-bit exponents; the sqrt2 top-layer t-leg,
+    ref mul_fft.c:591-634)."""
     C = x.shape[-2]
     D = C.bit_length() - 1
     assert C == 1 << D
-    if pre_half is not None and (D == 0 or not _stage_fusable(x)):
+    if pre_half is not None:
         from .sqrt2 import twiddle_half
 
         e0, st2 = pre_half
         x = twiddle_half(x, e0 + np.arange(C, dtype=np.int64) * st2, W)
-        pre_half = None
-    if post_exps is None and pre_half is None and D > 0 and _auto_fusable(x):
-        from .fused import fused_batched
-
-        flat = x.reshape((-1,) + x.shape[-2:])
-        def body(blk):
-            with no_auto_fuse():
-                return fft_radix2(blk, w, W)
-        return fused_batched(body, flat).reshape(x.shape)
     if post_exps is not None:
         if isinstance(post_exps, np.ndarray):
             post_exps = jnp.asarray(post_exps % (2 * W), jnp.int32)
@@ -143,29 +83,6 @@ def fft_radix2(x, w: int, W: int, post_exps: np.ndarray | None = None,
         return x
     lead = x.shape[:-2]
     L = x.shape[-1]
-    if _stage_fusable(x):
-        # multi-stage ladder kernels: LADDER stages share one HBM round trip
-        # (width-capped: wide digit rows shrink the ladder so the h-block
-        # floor keeps the Mosaic stack inside scoped vmem)
-        from .fused import fused_butterfly_ladder, ladder_stages
-
-        l = 0
-        while l < D:
-            kg = min(ladder_stages(L), D - l)
-            K = 1 << kg
-            hk = C >> (l + kg)
-            steps = tuple(w << (l + j) for j in range(kg))
-            pe = None
-            if l + kg == D and post_exps is not None:
-                pe = post_exps.reshape(pe_lead + (1 << l, K // 2, 2)) % (2 * W)
-                pe = jnp.broadcast_to(
-                    pe, lead + (1 << l, K // 2, 2)).reshape(-1, K // 2, 2)
-            x = fused_butterfly_ladder(
-                "fwd", x.reshape((-1, K, hk, L)), steps, W, pe,
-                pre_half=pre_half if l == 0 else None,
-            ).reshape(lead + (C, L))
-            l += kg
-        return x
     for l in range(D):
         h = C >> (l + 1)
         blocks = 1 << l
@@ -187,13 +104,15 @@ def fft_radix2(x, w: int, W: int, post_exps: np.ndarray | None = None,
     return x
 
 
-def inner_group(C: int) -> int:
-    """Stage count of ifft_radix2's first-executed (innermost) ladder group
-    on a length-C transform: the stages whose butterfly pairs live within
-    contiguous 2^kg position blocks."""
-    from .fused import LADDER
+# innermost inverse stages the staged pipeline applies chunk-locally
+INNER_STAGES = 4
 
-    return min(LADDER, C.bit_length() - 1)
+
+def inner_group(C: int) -> int:
+    """Stage count of the innermost inverse stages of a length-C transform
+    that ifft_innermost applies chunk-locally: the stages whose butterfly
+    pairs live within contiguous 2^kg position blocks."""
+    return min(INNER_STAGES, C.bit_length() - 1)
 
 
 def ifft_innermost(v, w: int, W: int, C: int):
@@ -211,28 +130,17 @@ def ifft_innermost(v, w: int, W: int, C: int):
     L = v.shape[-1]
     assert v.shape[-2] % K == 0, (v.shape, K)
     steps = [w << (D - kg + j) for j in range(kg)]
-    from .fused import MAX_STAGE_L, use_pallas
-
-    if use_pallas() and not _NO_FUSE.get() and L <= MAX_STAGE_L:
-        from .fused import fused_butterfly_ladder
-
-        return fused_butterfly_ladder(
-            "inv", v.reshape((-1, K, 1, L)), tuple(steps), W
-        ).reshape(v.shape)
     return ifft_innermost_body(v, steps, W, K)
 
 
 def ifft_innermost_body(v, steps, W: int, K: int):
-    """Pure-ops core of ifft_innermost on [..., R, L] (R a multiple of K):
-    also usable INSIDE a Pallas kernel (ntt._garner_carry fuses it as a
-    post-body so the pointwise chunk's first inverse leg costs no extra HBM
-    round trip).
+    """Core of ifft_innermost on [..., R, L] (R a multiple of K) with
+    explicit stage steps; with K = n1 it is the whole length-n1 inverse.
 
     Stage exponents i*steps[l2] are static per position i, so the twiddle
     divides are applied as a python-unrolled loop of h2 <= K/2 STATIC
     shift_mod slices (static roll + bit shift, zero selects) instead of a
-    per-row barrel of ~log2(L) roll+select levels (the static-roll motif of
-    fused.fused_butterfly_ladder, ref mul_fft.c:525-541)."""
+    per-row barrel of ~log2(L) roll+select levels (ref mul_fft.c:525-541)."""
     from .limb import carry_pass
 
     lead, R, L = v.shape[:-2], v.shape[-2], v.shape[-1]
@@ -276,14 +184,6 @@ def ifft_radix2(x, w: int, W: int, pre_exps: np.ndarray | None = None,
     assert C == 1 << D
     assert 0 <= skip_inner <= D
     assert skip_inner == 0 or pre_exps is None
-    if pre_exps is None and D > 0 and skip_inner == 0 and _auto_fusable(x):
-        from .fused import fused_batched
-
-        flat = x.reshape((-1,) + x.shape[-2:])
-        def body(blk):
-            with no_auto_fuse():
-                return ifft_radix2(blk, w, W)
-        return fused_batched(body, flat).reshape(x.shape)
     if pre_exps is not None:
         if isinstance(pre_exps, np.ndarray):
             pre_exps = jnp.asarray(pre_exps % (2 * W), jnp.int32)
@@ -294,28 +194,6 @@ def ifft_radix2(x, w: int, W: int, pre_exps: np.ndarray | None = None,
         return x
     lead = x.shape[:-2]
     L = x.shape[-1]
-    if _stage_fusable(x):
-        # multi-stage ladder kernels, innermost group first (mirror of the
-        # forward grouping; pre_exps rides the first-executed group)
-        from .fused import fused_butterfly_ladder, ladder_stages
-
-        l_hi = D - skip_inner
-        while l_hi > 0:
-            kg = min(ladder_stages(L), l_hi)
-            l = l_hi - kg
-            K = 1 << kg
-            hk = C >> l_hi
-            steps = tuple(w << (l + j) for j in range(kg))
-            pe = None
-            if l_hi == D and pre_exps is not None:
-                pe = pre_exps.reshape(pe_lead + (1 << l, K // 2, 2)) % (2 * W)
-                pe = jnp.broadcast_to(
-                    pe, lead + (1 << l, K // 2, 2)).reshape(-1, K // 2, 2)
-            x = fused_butterfly_ladder(
-                "inv", x.reshape((-1, K, hk, L)), steps, W, pe
-            ).reshape(lead + (C, L))
-            l_hi = l
-        return x
     for l in range(D - 1 - skip_inner, -1, -1):
         h = C >> (l + 1)
         blocks = 1 << l

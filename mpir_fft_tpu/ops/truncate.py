@@ -57,8 +57,8 @@ from .transforms import _as_col, _iota_exps, fft_radix2, ifft_radix2
 
 
 def _cat(*parts):
-    # drop zero-length pieces: Mosaic (Pallas TPU) rejects empty vectors,
-    # and the recursion's edge cases (trunc == h, trunc == C) produce them
+    # drop zero-length pieces, which the recursion's edge cases
+    # (trunc == h, trunc == C) produce
     parts = [p for p in parts if p.shape[-2] > 0]
     if len(parts) == 1:
         return parts[0]
@@ -66,7 +66,7 @@ def _cat(*parts):
 
 
 def _exps(h: int, w: int):
-    """Traced 1-D exponent vector i*w (iota, Pallas-compatible)."""
+    """Traced 1-D exponent vector i*w (iota)."""
     return _iota_exps(h, w)[..., 0]
 
 
@@ -185,7 +185,7 @@ def ifft_trunc1(v, w: int, W: int, trunc: int, pre_exps: np.ndarray | None = Non
         # j in [trunc, h); recurse left; recover m*x_j = 2*(h s_j) - m*x_{j+h}
         # (ref back-substitution loop, mul_fft.c:1573-1581)
         head = _apply_pe(v[..., :trunc, :], _slice_pe(pre_exps, 0, trunc), W, inverse=True)
-        if trunc < h:  # Mosaic rejects even dead zero-size slices
+        if trunc < h:  # skip the zero-size slice at trunc == h
             s_tail = carry_pass(v[..., trunc:h, :] + v[..., h + trunc : C, :][..., : h - trunc, :])
             vl = _cat(head, s_tail)
         else:

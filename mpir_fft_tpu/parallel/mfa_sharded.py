@@ -1,12 +1,12 @@
 """Multi-chip sharding of the MFA multiply over a device mesh.
 
 The reference is single-threaded C; its MFA cache blocking (README:74-91) is
-the axis this module scales over ICI (SURVEY.md section 2 parallelism
+the axis this module scales over the device interconnect (SURVEY.md section 2 parallelism
 checklist): shard the *column* axis j1 of the (n2, n1, L) coefficient
 tensor across devices during the column pass, and the row axis n2 during the
 row pass.  Column FFTs batch over j1 -> device-local; the column<->row
 boundary is one logical transpose, expressed as a sharding constraint so XLA
-SPMD inserts the ICI all-to-all; pointwise products stay local.  No
+SPMD inserts the all-to-all; pointwise products stay local.  No
 hand-written collectives: pjit + sharding annotations generate them
 (scaling-book recipe).  The same constrainer serves every MFA-family driver,
 including the flagship's sqrt2 composite (both halves)."""
@@ -35,11 +35,10 @@ class ShardCtx:
     1. As a callable constrainer `ctx(x, stage)` on [..., n2, n1, L] arrays:
        during the column pass the n1 axis is sharded (each device owns a
        block of columns); during the row pass the n2 axis is sharded.  XLA
-       inserts the ICI all-to-all at the switch.
+       inserts the all-to-all at the switch.
     2. As a (mesh, axis) carrier: ops.mfa's _run_cols/_run_rows detect it
-       and run each transform pass under shard_map, so every device executes
-       the same fused Pallas kernels on its local block that the unsharded
-       path uses (VMEM residency survives sharding)."""
+       and run each transform pass under shard_map, so every device
+       transforms its local block."""
 
     def __init__(self, mesh: Mesh, axis: str = "cols"):
         self.mesh = mesh
@@ -68,10 +67,9 @@ def sharded_mul_fn(mesh: Mesh, plan, driver: str = "mfa"):
 
     Flagship plans above the staged threshold route to the SHARDED STAGED
     pipeline (models.mul._staged_flagship_sharded): the monolithic trace
-    OOMs the compiler at production sizes (models/mul.py:243-247), so the
-    10^8/10^9-bit multi-chip path -- the north-star configuration -- runs
-    the same multi-program staging as single-chip, each stage program under
-    the mesh.  Returns a callable either way."""
+    is kept out of one program at production sizes, so the 10^8/10^9-bit
+    multi-device path runs the same multi-program staging as one device,
+    each stage program under the mesh.  Returns a callable either way."""
     constrain = make_constrainer(mesh)
     if driver == "flagship":
         from mpir_fft_tpu.models.mul import _staged_flagship, flagship_is_staged
@@ -93,8 +91,8 @@ def sharded_mul_fn(mesh: Mesh, plan, driver: str = "mfa"):
 
 def sharded_mul_many_fn(mesh: Mesh, plan, driver: str = "flagship"):
     """Data-parallel batched multiply: the leading batch axis of [k, L]
-    digit arrays shards over the mesh, each device runs the FULL single-chip
-    pipeline (all fused Pallas kernels) on its local pairs under shard_map.
+    digit arrays shards over the mesh, each device runs the FULL
+    single-device pipeline on its local pairs under shard_map.
     Zero collectives -- products are independent (the DP complement of
     sharded_mul_fn's model-parallel column sharding).  k must divide by the
     mesh size."""

@@ -49,3 +49,49 @@ def rand_digits(rng: np.random.Generator, shape, lo=-(1 << 18), hi=1 << 18) -> n
 
 def rand_canonical(rng: np.random.Generator, shape) -> np.ndarray:
     return rng.integers(0, 1 << DIGIT_BITS, size=shape, dtype=np.int64).astype(np.int32)
+
+
+# Whole-product checks: a full CPython a*b is O(n^1.58) and takes tens of
+# minutes at 10^9 bits; got == a*b mod a few 61-bit primes is O(n) per prime
+# (seconds) and misses a wrong product with probability ~2^-180.
+
+def _is_prime(n: int) -> bool:
+    if n % 2 == 0:
+        return n == 2
+    d, s = n - 1, 0
+    while d % 2 == 0:
+        d, s = d // 2, s + 1
+    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):  # exact below 3.3e24
+        x = pow(a, d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(s - 1):
+            x = x * x % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def check_primes(k: int = 3) -> list[int]:
+    """The k largest primes below 2^61."""
+    out, c = [], (1 << 61) - 1
+    while len(out) < k:
+        if _is_prime(c):
+            out.append(c)
+        c -= 2
+    return out
+
+
+def residues_match(got: int, a: int, b: int) -> bool:
+    return all(got % p == (a % p) * (b % p) % p for p in check_primes())
+
+
+def product_matches(got: int, a: int, b: int, bits: int,
+                    full_max_bits: int = 20_000_000) -> bool:
+    """got == a * b: a full compare up to full_max_bits operand bits, the
+    three-prime residue compare above."""
+    if bits <= full_max_bits:
+        return got == a * b
+    return residues_match(got, a, b)

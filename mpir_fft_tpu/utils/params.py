@@ -72,11 +72,10 @@ class MulPlan:
     def trunc_mfa(self) -> int:
         """trunc rounded to a multiple of n1 (MFA row granularity,
         ref mul_fft.c:3613) -- and rounded UP to the FULL convolution length
-        when >= 9/16 of it: with the flat-transform dispatch, the full
-        transforms beat the truncation case recursion's slice/twiddle/add
-        layers down to trunc/conv ~0.57 (measured flagship A/B on v5e:
-        ratio 0.94 full wins 0.468 vs 0.728 s; 0.76 full 49 vs 55 ms;
-        0.64 full 7.8 vs 10.5 ms; 0.57 tie).  The reference has no such
+        when >= 9/16 of it: the flat full-length transforms are preferred
+        to the truncation case recursion's slice/twiddle/add layers above
+        that ratio (the 9/16 crossover is a calibration constant, not yet
+        measured on this device).  The reference has no such
         crossover -- its recursion costs nothing extra per level
         (mul_fft.c:2212-2355)."""
         t = min(self.conv_len, max(self.n1, self.n1 * cdiv(self.j1 + self.j2 - 1, self.n1)))
@@ -110,10 +109,9 @@ def plan_for_depth(bits_a: int, bits_b: int, depth: int, sqrt2: bool = False) ->
         w = W // n
         bits1_max = (W - lg) // 2
         # digit-align the coefficient stride so split/combine are pure
-        # reshapes (no TPU gathers) -- and align the stride d = bits1/16 to
-        # 8 digits (one sublane tile), falling back to 2: XLA TPU reshapes
-        # between (C*d,) and (C, d) with ODD d hit a scalar relayout path
-        # measured 4-5 ORDERS slower (1291s vs 0.038s at the 10^9-bit shape)
+        # reshapes (no gathers) -- and align the stride d = bits1/16 to
+        # 8 digits, falling back to 2, so reshapes between (C*d,) and
+        # (C, d) never see an odd d
         d_max = bits1_max // DIGIT_BITS
         for align in (8, 2, 1):
             d = (d_max // align) * align
@@ -135,11 +133,11 @@ def plan_for_depth(bits_a: int, bits_b: int, depth: int, sqrt2: bool = False) ->
 
 def plan_cost(plan: MulPlan) -> float:
     """Rough work model: transform passes + pointwise.  The pointwise unit
-    cost depends on which path serves the ring width W: the MXU NTT-CRT
-    (ops/ntt.py) covers power-of-two L up to the 3-prime ceiling and is
-    ~an order of magnitude cheaper per MAC than the VPU schoolbook, and
-    both beat a whole recursion level (measured end-to-end at 10^9 bits:
-    W=32768 NTT plan 5.3 s vs W=65536 recursive plan 11.5 s)."""
+    cost depends on which path serves the ring width W: the int8-GEMM
+    NTT-CRT (ops/ntt.py) covers power-of-two L up to the 3-prime ceiling
+    and is priced ~an order of magnitude cheaper per MAC than the
+    schoolbook, and both below a whole recursion level.  The factors are
+    calibration constants, not yet measured on this device."""
     from mpir_fft_tpu.ops.mulmod import MULMOD_BASE_MAX_BITS
     from mpir_fft_tpu.ops.ntt import ntt_supported
     from mpir_fft_tpu.ops.pointwise import _use_ntt
@@ -158,12 +156,10 @@ def plan_cost(plan: MulPlan) -> float:
         from mpir_fft_tpu.ops.ntt import TIER1_MAX_M
 
         # tier-1 (M <= 2048): 2 int8 planes, one dense matmul per pass.
-        # tier-2: 3 planes (2.25x the MAC work) + 4-step elementwise links;
-        # 0.45 calibrated from a measured end-to-end A/B at 10^9 bits
-        # (depth-15/w-1 M=2048: 0.80 s vs depth-14/w-4 M=4096: 1.52 s)
+        # tier-2: 3 planes (2.25x the MAC work) + 4-step elementwise links
         pw_cost = pw_unit * (0.1 if L <= TIER1_MAX_M else 0.45)
     elif plan.W <= MULMOD_BASE_MAX_BITS and 2 * L <= 4096:
-        pw_cost = pw_unit * 1.0          # VPU schoolbook
+        pw_cost = pw_unit * 1.0          # schoolbook
     else:
         pw_cost = pw_unit * 0.3          # recursive Fermat mulmod (also the
         # route for below-crossover widths the base path cannot serve)
@@ -186,9 +182,8 @@ def choose_params(bits_a: int, bits_b: int, sqrt2: bool | None = None) -> MulPla
                 continue
             cost = plan_cost(plan)
             if (plan.bits1 // DIGIT_BITS) % 2 == 1:
-                # odd coefficient stride -> scalar-relayout reshapes in
-                # split/combine (measured orders-of-magnitude slow); only
-                # pick such a plan when no even-stride depth fits
+                # odd coefficient stride -> odd-d reshapes in split/combine;
+                # only pick such a plan when no even-stride depth fits
                 cost *= 50.0
             if best_cost is None or cost < best_cost:
                 best, best_cost = plan, cost

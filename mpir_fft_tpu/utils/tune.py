@@ -7,20 +7,17 @@ all -- callers hardcode depth/w and "will just segfault" on bad choices
 (mul_fft.c:3186-3188); here mis-tuning costs only speed, never correctness,
 so measurement is safe to automate.
 
-Timing uses the chained-execution recipe from bench.py (the attached TPU
-reports readiness before cost is visible; chaining forces real execution).
+Timing chains each repetition's output into the next input and closes
+the loop with one scalar fetch (the recipe of bench.py).
 
-Cache layout (ADVICE r4): entries are namespaced by DEVICE KIND (a
-v5e-measured plan must not silently govern a different accelerator), and
-runtime `cli tune` results go to an UNTRACKED file
-(<repo>/.cache/tune_cache.json, or MPIR_FFT_TUNE_CACHE) so tuning never
-dirties the work tree.  The tracked <repo>/.tune_cache.json ships the
-measured v5e entries as a read-only seed; local entries win over seed
-entries for the same key.  Keys: "driver:bucket_a:bucket_b[:batchN]" --
-geometric size buckets make one measurement serve nearby sizes, and the
-batch-class suffix keeps single-product-tuned plans from silently governing
-batched runs (plans that win on dispatch latency can lose on batch
-occupancy; VERDICT r4)."""
+Cache layout: entries are namespaced by DEVICE KIND (a plan measured on one
+accelerator must not silently govern another), and `cli tune` results go to
+an UNTRACKED file (<repo>/.cache/tune_cache.json, or MPIR_FFT_TUNE_CACHE)
+so tuning never dirties the work tree.  Keys:
+"driver:bucket_a:bucket_b[:batchN]" -- geometric size buckets make one
+measurement serve nearby sizes, and the batch-class suffix keeps
+single-product-tuned plans from silently governing batched runs (plans that
+win on dispatch latency can lose on batch occupancy)."""
 
 from __future__ import annotations
 
@@ -37,10 +34,6 @@ from mpir_fft_tpu.utils.params import MulPlan, cdiv, choose_params, plan_for_dep
 def _repo_root() -> str:
     return os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-
-
-def _seed_path() -> str:
-    return os.path.join(_repo_root(), ".tune_cache.json")
 
 
 def _cache_path() -> str:
@@ -89,15 +82,12 @@ def _device_entries(raw: dict) -> dict:
 
 
 def _load_cache() -> dict:
-    """Merged current-device entries: committed seed, then local overrides."""
-    merged = _device_entries(_read_json(_seed_path()))
-    merged.update(_device_entries(_read_json(_cache_path())))
-    return merged
+    """Current-device entries of the tuning cache."""
+    return _device_entries(_read_json(_cache_path()))
 
 
 def _save_entry(key: str, entry: dict) -> None:
-    """Record one tuning result in the UNTRACKED local cache (never the
-    committed seed)."""
+    """Record one tuning result in the UNTRACKED local cache."""
     path = _cache_path()
     raw = _read_json(path)
     if raw and any(isinstance(v, dict) and "depth" in v for v in raw.values()):
@@ -124,7 +114,7 @@ def candidate_plans(bits_a: int, bits_b: int, sqrt2: bool) -> list[MulPlan]:
 
 
 def measure_plan(kind: str, plan: MulPlan, reps: int = 3) -> float:
-    """Seconds per multiply for one candidate (chained, load-absorbed)."""
+    """Seconds per multiply for one candidate (chained repetitions)."""
     import jax
     import jax.numpy as jnp
 
@@ -158,9 +148,8 @@ def cached_plan(bits_a: int, bits_b: int, driver: str = "flagship",
     analytic model silently mis-pricing a size).
 
     batch > 1 looks up the batch-class bucket ONLY: single-product entries
-    are tuned on dispatch latency and measured to regress batched runs
-    (VERDICT r4 weak #3), so a batched caller with no batch-tuned entry gets
-    None (-> the analytic plan)."""
+    are tuned on dispatch latency and can regress batched runs, so a batched
+    caller with no batch-tuned entry gets None (-> the analytic plan)."""
     from mpir_fft_tpu.models.mul import DRIVERS
 
     sqrt2 = DRIVERS[driver][1]

@@ -1,4 +1,4 @@
-"""Tier-1 tests of the MXU NTT-CRT pointwise path (ops/ntt.py) against the
+"""Tier-1 tests of the int8-GEMM NTT-CRT pointwise path (ops/ntt.py) against the
 Python big-int oracle, mirroring the reference's mulmod test discipline
 (test_mulmod, mul_fft.c:4224-4274): random operands including DENORMALIZED
 redundant digit vectors (the rand_n signed-carry trick, mul_fft.c:3770-3775),
@@ -128,27 +128,11 @@ def test_mulmod_ntt_pair_ab_path(rng, monkeypatch, M):
         check(got[i], ref_mulmod(a[i], b[i], M), M)
 
 
-def test_mulmod_ntt_fused_ab_path(rng, monkeypatch):
-    """Opt-in fully-fused Pallas pipeline (MPIR_FFT_NTT_FUSED=1) must agree
-    with the default XLA 4-step path bit-for-bit (interpret mode on CPU)."""
-    from mpir_fft_tpu.ops import fused
-
-    M = 4096
-    a = rng.integers(0, 1 << 16, (8, M)).astype(np.int32)
-    b = rng.integers(0, 1 << 16, (8, M)).astype(np.int32)
-    want = np.asarray(mulmod_ntt(jnp.asarray(a), jnp.asarray(b), canonical=True))
-    monkeypatch.setenv("MPIR_FFT_NTT_FUSED", "1")
-    with fused.force_pallas(True):
-        got = np.asarray(mulmod_ntt(jnp.asarray(a), jnp.asarray(b), canonical=True))
-    np.testing.assert_array_equal(got, want)
-
-
 def test_barrett_reductions_extreme(rng):
     """The f32-Barrett reduction helpers (ntt._red_loose/_center/_nonneg)
     must be exact across their full |v| <= 2^29 domain for every prime of
     every tier, including the boundary values where the f32 quotient error
-    is largest.  These carry the NTT pointwise's exactness (round-3 lazy
-    reduction rewrite)."""
+    is largest.  These carry the NTT pointwise's exactness."""
     import jax.numpy as jnp
 
     from mpir_fft_tpu.ops.ntt import (PRIMES, PRIMES_PAIR, PRIMES_T2,

@@ -1,21 +1,14 @@
-"""Pins for the round-2 production fusions in the STAGED flagship pipeline
-(models.mul._staged_flagship) and the Garner-kernel inverse-leg fusion
-(ops.ntt.garner_post) -- the paths that only production-size plans exercise
-on hardware (ref combined inverse variant, mul_fft.c:2745-2923; zero-top
-forward per the flat DIF first stage; scale+normalize tail of
-mul_fft.c:3658-3662).
-
-These run the staged multi-program pipeline on CPU with force_pallas(True)
-(interpret mode), so the Pallas kernels -- zero-top forward, skip_inner
-ladder, norm_div top-merge, garner_post epilogue -- are all traced and
-executed, not skipped the way the plain CPU staged test skips them."""
+"""Pins for the STAGED flagship pipeline (models.mul._staged_flagship) --
+the paths that only production-size plans take (ref combined inverse
+variant, mul_fft.c:2745-2923; zero-top forward per the flat DIF first
+stage; scale+normalize tail of mul_fft.c:3658-3662).  The tests call the
+multi-program pipeline directly on tiny hand-built plans: zero-top forward,
+chunk-local first inverse leg with skip_inner, norm_div folded into the
+inverse, buffer donation."""
 
 import numpy as np
-import pytest
-
 import jax.numpy as jnp
 
-from mpir_fft_tpu.ops.fused import force_pallas
 from mpir_fft_tpu.ops.limb import DIGIT_BITS, digits_from_int, int_from_digits
 from mpir_fft_tpu.utils.params import MulPlan, cdiv, plan_for_depth, validate
 
@@ -27,28 +20,26 @@ def _rand(rng, bits):
 
 
 def _staged_run(plan, a, b=None):
-    """Run the staged pipeline (threshold forced to 0) under forced Pallas."""
+    """Run the staged pipeline on one plan."""
     import mpir_fft_tpu.models.mul as M
 
     M._staged_flagship.cache_clear()
     try:
-        with force_pallas(True):
-            fn = M._staged_flagship(plan)
-            da = jnp.asarray(digits_from_int(a, cdiv(plan.bits_a, DIGIT_BITS)))
-            if b is None:
-                out = fn(da)
-            else:
-                db = jnp.asarray(
-                    digits_from_int(b, cdiv(plan.bits_b, DIGIT_BITS)))
-                out = fn(da, db)
-            return int_from_digits(np.asarray(out))
+        fn = M._staged_flagship(plan)
+        da = jnp.asarray(digits_from_int(a, cdiv(plan.bits_a, DIGIT_BITS)))
+        if b is None:
+            out = fn(da)
+        else:
+            db = jnp.asarray(digits_from_int(b, cdiv(plan.bits_b, DIGIT_BITS)))
+            out = fn(da, db)
+        return int_from_digits(np.asarray(out))
     finally:
         M._staged_flagship.cache_clear()
 
 
 def _pow2_flat_plan():
     """Hand-built flat (trunc == conv) zero-top plan with power-of-two L so
-    the pointwise routes to the NTT and the garner_post fusion engages:
+    the pointwise routes to the NTT:
     depth 5, w 64 -> W = 2048, L = 128, conv 128, j1 = j2 = 40 <= h = 64."""
     plan = MulPlan(depth=5, w=64, bits1=1008, j1=40, j2=40,
                    bits_a=40320, bits_b=40320, sqrt2=True)
@@ -58,16 +49,16 @@ def _pow2_flat_plan():
     return plan
 
 
-def test_staged_flat_zerotop_pallas_mul(rng):
-    """Flat staged mul under forced Pallas: zero-top forward split, garner
-    inverse-leg fusion (NTT pointwise), skip_inner ladder, norm_div
-    top-merge folding, buffer donation -- bit-exact."""
+def test_staged_flat_zerotop_mul(rng):
+    """Flat staged mul: zero-top forward split, NTT pointwise feeding the
+    chunk-local inverse leg, skip_inner, norm_div top-merge folding, buffer
+    donation -- bit-exact."""
     plan = _pow2_flat_plan()
     a, b = _rand(rng, plan.bits_a), _rand(rng, plan.bits_b)
     assert _staged_run(plan, a, b) == a * b
 
 
-def test_staged_flat_zerotop_pallas_sqr(rng):
+def test_staged_flat_zerotop_sqr(rng):
     """Same pipeline, squaring flavor (sq_rows_chunk: single donated
     spectrum fed to both pointwise operands)."""
     plan = _pow2_flat_plan()
@@ -75,11 +66,10 @@ def test_staged_flat_zerotop_pallas_sqr(rng):
     assert _staged_run(plan, a) == a * a
 
 
-def test_staged_flat_unbalanced_pallas(rng):
+def test_staged_flat_unbalanced(rng):
     """Flat staged plan WITHOUT the zero-top shortcut (j1 > h): the forward
-    runs the full mfa_fft_trunc_sqrt2 -> flat dispatch; pointwise falls back
-    to the schoolbook (odd L), so the garner hook reports unconsumed and the
-    inverse leg runs as its own kernel pass (the `inner(prod)` fallback)."""
+    runs the full mfa_fft_trunc_sqrt2 -> flat dispatch; the pointwise takes
+    the schoolbook (odd L) before the chunk-local inverse leg."""
     plan = plan_for_depth(24000, 6000, 4, sqrt2=True)
     assert plan.trunc_mfa == plan.conv_len
     assert max(plan.j1, plan.j2) > plan.conv_len // 2
@@ -87,8 +77,8 @@ def test_staged_flat_unbalanced_pallas(rng):
     assert _staged_run(plan, a, b) == a * b
 
 
-def test_staged_truncated_pallas(rng):
-    """Truncated (trunc < conv) staged plan under forced Pallas: MFA
+def test_staged_truncated(rng):
+    """Truncated (trunc < conv) staged plan: MFA
     transforms, ifft_mfa_rows pointwise leg, separate chunked normmod_div.
     Hand-built plan: plan_for_depth always packs the convolution nearly
     full, which trunc_mfa rounds up to FLAT -- staying truncated needs
@@ -99,71 +89,3 @@ def test_staged_truncated_pallas(rng):
     assert plan.trunc_mfa < plan.conv_len, plan
     a, b = _rand(rng, plan.bits_a), _rand(rng, plan.bits_b)
     assert _staged_run(plan, a, b) == a * b
-
-
-# ---------------------------------------------------------------------------
-# garner_post: the inverse's innermost ladder group INSIDE the Garner CRT
-# kernel (ops/ntt.py:386-459) vs the same leg applied separately
-# ---------------------------------------------------------------------------
-
-def _rand_redundant(rng, B, L):
-    """Redundant signed digit rows within the transform invariant."""
-    return jnp.asarray(
-        rng.integers(-(1 << 17), 1 << 17, (B, L), dtype=np.int64).astype(np.int32)
-    )
-
-
-def test_garner_post_fused_matches_separate(rng):
-    """body-inside-the-Garner-kernel == body applied after the plain Garner
-    kernel, bitwise, and the hook reports consumed."""
-    from mpir_fft_tpu.ops.ntt import garner_post, ntt_supported
-    from mpir_fft_tpu.ops.pointwise import mulmod_base
-    from mpir_fft_tpu.ops.transforms import ifft_innermost_body
-
-    L, W, B, K = 128, 2048, 64, 8
-    assert ntt_supported(L)
-    steps = [W // 8, W // 4, W // 2]         # kg = 3 inverse stages
-    body = lambda blk: ifft_innermost_body(blk, steps, W, K)
-    a = _rand_redundant(rng, B, L)
-    b = _rand_redundant(rng, B, L)
-
-    with force_pallas(True):
-        with garner_post(L, K, body) as cell:
-            fused = np.asarray(mulmod_base(a, b, canonical=False))
-        assert cell["consumed"] is True
-        separate = np.asarray(body(mulmod_base(a, b, canonical=False)))
-    np.testing.assert_array_equal(fused, separate)
-
-
-def test_garner_post_unconsumed_fallback(rng, monkeypatch):
-    """When the pointwise routes away from the NTT (MPIR_FFT_NTT=0 ->
-    schoolbook), the hook must stay unconsumed and the caller-applied leg
-    must still be exact -- the `cell["consumed"]` guard in
-    models.mul._staged_flagship._pw_inner."""
-    from mpir_fft_tpu.ops.ntt import garner_post
-    from mpir_fft_tpu.ops.pointwise import mulmod_base
-    from mpir_fft_tpu.ops.transforms import ifft_innermost_body
-
-    L, W, B, K = 128, 2048, 16, 8
-    p = (1 << W) + 1
-    steps = [W // 8, W // 4, W // 2]
-    body = lambda blk: ifft_innermost_body(blk, steps, W, K)
-    a = _rand_redundant(rng, B, L)
-    b = _rand_redundant(rng, B, L)
-
-    with force_pallas(True):
-        with garner_post(L, K, body) as cell:
-            # consumed hook: the body runs INSIDE the Garner kernel
-            ntt_out = mulmod_base(a, b, canonical=False)
-        assert cell["consumed"] is True
-        monkeypatch.setenv("MPIR_FFT_NTT", "0")
-        with garner_post(L, K, body) as cell:
-            prod = mulmod_base(a, b, canonical=False)
-        assert cell["consumed"] is False
-        school_out = body(prod)
-
-    # different pointwise paths -> different redundant representations;
-    # compare ring VALUES row by row
-    ntt_np, school_np = np.asarray(ntt_out), np.asarray(school_out)
-    for i in range(B):
-        assert int_from_digits(ntt_np[i]) % p == int_from_digits(school_np[i]) % p
